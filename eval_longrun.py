@@ -7,7 +7,7 @@ stay bounded lap after lap.  Reference behavior: unbounded std::map store
 (RGC_mapping.cpp:1839-1943) — parity here is graceful degradation instead of
 a silent freeze.
 
-Run: `JAX_PLATFORMS=cpu python eval_longrun.py` (CPU, ~20 min) or on TPU.
+Run: `JAX_PLATFORMS=cpu python eval_longrun.py` (CPU, ~20 min) or on the GPU.
 Appends a JSON line to eval_results.json-style output on stdout.
 """
 from __future__ import annotations
@@ -44,8 +44,6 @@ CFG = dataclasses.replace(
 
 
 def main():
-    from rgc_slam_tpu.utils.backend import ensure_backend
-    ensure_backend()
     # ~5.3 laps of a 12 m-radius circle: 400 m travel ~= 3x store capacity
     seq = synthetic.generate_sequence(
         n_scans=N_SCANS, n_azimuth=360, seed=31, extent=26.0, radius=12.0,

@@ -8,7 +8,7 @@ Ceres SPARSE_NORMAL_CHOLESKY, RGC_mapping.cpp:2421-2428) would spread the
 correction smoothly around the ring; we report wall latency, post-PGO ATE
 vs ground truth, and cost reduction for the matrix-free GN-CG solve.
 
-Run: `python eval_pgo.py` (TPU) or `JAX_PLATFORMS=cpu python eval_pgo.py`.
+Run: `python eval_pgo.py` (GPU) or `JAX_PLATFORMS=cpu python eval_pgo.py`.
 Prints a markdown table (pasted into EVAL.md).
 """
 from __future__ import annotations
@@ -112,8 +112,6 @@ def run_case(K: int, cg_iters: int, reps: int = 3):
 
 
 def main():
-    from rgc_slam_tpu.utils.backend import ensure_backend
-    ensure_backend()
     rows = []
     for K in (512, 2048, 4096):
         for cg in (128,):

@@ -9,8 +9,8 @@ remaining replicated compute (features, submap assembly hashing, loop
 closure) bounds the speedup (Amdahl).
 
 CAVEAT: the virtual mesh runs s "devices" as host threads of ONE CPU —
-absolute times here show correctness + the replicated/sharded split, not ICI
-behavior.  On real chips the psum rides ICI at ~μs latency; the table's
+absolute times here show correctness + the replicated/sharded split, not
+interconnect behavior.  On real GPUs the psum rides NVLink; the table's
 "sharded fraction" column is the transferable number.
 
 Usage: python eval_sp.py    (writes eval_sp.json, prints a markdown table)
@@ -93,8 +93,6 @@ def run_mesh(n_sp, inputs):
 
 
 def main():
-    from rgc_slam_tpu.utils.backend import ensure_backend
-    ensure_backend()
     # one sp size per invocation (each compile is minutes on the virtual
     # mesh); rows accumulate in eval_sp.json.  --table prints the summary.
     import argparse

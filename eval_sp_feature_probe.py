@@ -3,7 +3,7 @@ revisit condition): does the FEATURE stage leave the dispatch floor on a
 single-robot, compute-heavy deployment?
 
 PARITY's sp-FINAL decision keeps the feature front-end unsharded because at
-product caps the whole fleet step sits on the ~0.4-0.7 ms dispatch floor.
+product caps the whole fleet step sat on the dispatch floor.
 The reserved revisit case is a single-stream 128-beam-class sensor at 10x
 the point cap (max_points=131072, 64 rings x 2048 azimuth — the densest
 spec this synthetic generator can cast).  This probe times exactly that:
@@ -11,7 +11,7 @@ spec this synthetic generator can cast).  This probe times exactly that:
   * jitted ``ops.features.extract_features`` single-stream at 131072-point
     caps (10x sharp/flat/intensity budgets so the picker scales too),
   * a trivial jitted program on the same input, which IS the dispatch floor
-    for this transport,
+    for this device,
   * the same feature program at the product 16-ch cap for reference.
 
 Decision rule printed with the numbers: if feature time stays within ~2x
@@ -21,7 +21,7 @@ hides); if it clears the floor by >>2x, the halo design has its first real
 justification.  Reference analog: the OpenMP point loops that parallelize
 this same stage on CPU (scanRegistration.cpp:233-306).
 
-Run on the real chip: `python eval_sp_feature_probe.py` (one JSON line).
+Run on the GPU: `python eval_sp_feature_probe.py` (one JSON line).
 """
 from __future__ import annotations
 
@@ -94,7 +94,7 @@ def time_features(cfg: SlamConfig, n_rings: int, n_azimuth: int, seed: int):
     feat = jax.jit(functools.partial(F.extract_features, cfg=cfg))
     ms = _median_ms(feat, (cloud,))
     gf = _flops(functools.partial(F.extract_features, cfg=cfg), (cloud,))
-    # dispatch floor: a trivial program on the same transport
+    # dispatch floor: a trivial program on the same device
     floor_fn = jax.jit(lambda c: c.xyz[0] + 1.0)
     floor_ms = _median_ms(floor_fn, (cloud,))
     return ms, floor_ms, (gf / 1e9 if gf else None), int(np.sum(
@@ -102,8 +102,6 @@ def time_features(cfg: SlamConfig, n_rings: int, n_azimuth: int, seed: int):
 
 
 def main():
-    from rgc_slam_tpu.utils.backend import ensure_backend
-    ensure_backend()
     dev = jax.devices()[0].device_kind
 
     _note("dense probe: 64 rings x 2048 az = 131072-point caps, 10x budgets")

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native RGC-SLAM rebuild.
+"""Configuration for the JAX RGC-SLAM rebuild.
 
 Mirrors the reference's ROS parameter-server configuration plus the hardcoded
 physical constants surveyed in SURVEY.md §5.6 (``launch/run.launch:4-36``,
@@ -173,7 +173,7 @@ class SlamConfig:
     # ---- multi-chip sharding ----
     # When set, the registration hot loop runs point-sharded over this mesh
     # axis: each device linearizes its slice of the source cloud and the
-    # 6x6 H / b / cost are psum-reduced over ICI (scaling-book style "sp"
+    # 6x6 H / b / cost are psum-reduced over the device interconnect (scaling-book style "sp"
     # axis; composes with a "dp" fleet axis over robots — parallel/fleet.py).
     psum_axis: "str | None" = None
     # Static shard count of the psum_axis (the mesh's sp extent).  With
@@ -186,11 +186,9 @@ class SlamConfig:
     # Shard the feature front-end's per-point work over the sp axis too
     # (ops/features.extract_features_sp): each device computes
     # max_points/sp_shards rows of the windowed stack + covariances on a
-    # ±halo strip and the results all-gather.  OFF by default — at product
-    # caps the feature stage sits under the dispatch floor and replication
-    # is free; justified for dense single-stream deployments (PARITY §sp
-    # round-5 probe: the 131k-point feature stage runs 8.9x above the
-    # dispatch floor).
+    # ±halo strip and the results all-gather.  OFF by default; meant for
+    # dense single-stream deployments (131k-point caps).  Its gain on real
+    # devices is not measured yet.
     sp_features: bool = False
     # per-point covariance regularization — the full fast_gicp
     # RegularizationMethod set (gicp_settings.hpp,

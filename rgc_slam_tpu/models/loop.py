@@ -4,7 +4,7 @@ Reference mechanics rebuilt:
   * drift-adaptive candidate search — radius 15 + (travel-DistanceByLoop)*0.02,
     travel-distance separation gate, keyID>=10 (RGC_mapping.cpp:2141-2225)
   * current-keyframe vs ±N-keyframe-submap ICP, accept fitness < 0.1
-    (RGC_mapping.cpp:2050-2081) — point-to-point ICP with batched 1-NN (MXU)
+    (RGC_mapping.cpp:2050-2081) — point-to-point ICP with batched 1-NN
     and closed-form Kabsch/Umeyama updates instead of pcl::ICP
   * low-drift state machine: >4 consecutive loops within 10 m -> rate-limit
     loops to every 5 m; reset when 20 m passes without one
@@ -23,13 +23,13 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..utils import math3d as m3
 from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
+from ..utils import pytree
 from .mapping import MappingState
 from .mapping import COMPACT_MARGIN as mapping_margin
 from .mapping import compact_keyframe_store as mapping_compact
@@ -39,7 +39,7 @@ DRIFT_FACTOR = 0.02
 MIN_LOOP_KEY = 10
 
 
-@struct.dataclass
+@pytree.dataclass
 class LoopState:
     loop_i: jax.Array         # [L] current-keyframe id (the "j" in FourDOF)
     loop_j: jax.Array         # [L] history/loop keyframe id (the "i")
@@ -402,7 +402,7 @@ def _pgo_solve(ms: MappingState, ls: LoopState, cfg: SlamConfig) -> MappingState
     The reference optimizes absolute (yaw, t) per keyframe with Ceres'
     SPARSE_NORMAL_CHOLESKY (RGC_mapping.cpp:2302-2466) — an exact sparse
     solve.  A matrix-free CG on the same absolute parametrization is a poor
-    TPU substitute: the odometry chain makes J^T J a 1-D graph Laplacian
+    substitute: the odometry chain makes J^T J a 1-D graph Laplacian
     (condition ~K^2), and each CG iteration propagates a loop correction one
     keyframe hop, so at K >= 2048 the 128-iteration solve barely moves.
 

@@ -1,4 +1,4 @@
-"""Mapping back-end: the TPU rebuild of the `RGC_mapping` node (A12-A13).
+"""Mapping back-end: the JAX rebuild of the `RGC_mapping` node (A12-A13).
 
 One jit-compiled step (SURVEY §3.3): surrounding-keyframe map assembly →
 two-pose scan-to-map optimization (corner line fits + surf plane fits for the
@@ -10,7 +10,7 @@ Reference mechanics rebuilt here:
     (RGC_mapping.cpp:1503-1616)  ->  top-K nearest keyframes by distance
     matrix, gathered and voxel-downsampled with static caps.
   * per-point 5-NN line/plane association (RGC_mapping.cpp:1093-1283)  ->
-    batched MXU knn + closed-form 3x3 eigen / normal-equation plane fits.
+    batched brute-force knn + closed-form 3x3 eigen / normal-equation plane fits.
   * joint (q,t,q_last,t_last) Ceres solve with Huber(0.1) on lidar factors
     (RGC_mapping.cpp:1076-1354)  ->  12-dim tangent Gauss-Newton with frozen
     correspondences per outer iteration (2 outer x 6 inner like the ref).
@@ -23,7 +23,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..types import GroundPlane
@@ -32,6 +31,7 @@ from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
 from ..ops.covariance import eigh3x3
+from ..utils import pytree
 from .odometry import OdometryOutput
 
 HIST_CAP = 64
@@ -66,7 +66,7 @@ def worst_cadence_gap(loop_cadence: int, chunk: int) -> int:
     return loop_cadence + (chunk - r if r else 0)
 
 
-@struct.dataclass
+@pytree.dataclass
 class MappingState:
     # map -> odom correction (RGC_mapping.cpp transformUpdate)
     q_md: jax.Array           # [4] q_wmap_wodom

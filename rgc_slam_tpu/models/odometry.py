@@ -1,4 +1,4 @@
-"""Odometry front-end: the TPU rebuild of the `RGC_odometer` node (vg_ICP).
+"""Odometry front-end: the JAX rebuild of the `RGC_odometer` node (vg_ICP).
 
 One pure jit-compiled step (SURVEY §3.2): IMU filtering/preintegration →
 constant-velocity deskew → VGICP against the sliding submap → factor-graph
@@ -20,7 +20,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..types import GroundPlane, ImuBatch, PointCloud
@@ -30,12 +29,13 @@ from ..ops import imu as imu_ops
 from ..ops import registration as reg
 from ..ops import voxelhash as vh
 from ..ops.features import FeatureExtraction
+from ..utils import pytree
 
 HIST_CAP = 64     # historical ground-plane anchor orientations
 RAD2DEG = 57.29577951308232
 
 
-@struct.dataclass
+@pytree.dataclass
 class OdometryState:
     # pose
     q_w: jax.Array            # [4] world <- current sensor

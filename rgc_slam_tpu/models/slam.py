@@ -19,7 +19,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud
@@ -27,9 +26,10 @@ from ..ops import features as F
 from ..ops import voxelhash as vh
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class SlamState:
     odo: odometry_mod.OdometryState
     mapping: mapping_mod.MappingState
@@ -139,7 +139,8 @@ def make_chunk_step(step_fn, chunk: int):
     callable takes ``(state, *flat)`` where flat interleaves chunk
     (cloud, imu, stamp) triples and returns ``(state, [out] * chunk)``.
     Shared by SlamSystem.process_chunk, the fleet CLI, and bench.py — the
-    3-5x dispatch-amortization lever in one place."""
+    dispatch-amortization lever in one place (its gain on the H100 is not
+    measured yet)."""
 
     def chunk_step(state, *flat):
         outs = []
@@ -156,8 +157,8 @@ class SlamSystem:
 
     ``chunk`` > 1 compiles a program that advances ``chunk`` scans per
     dispatch (python-unrolled): per-call overhead is paid once per chunk
-    instead of per scan (measured 3-5x throughput on dispatch-bound hosts;
-    see bench.py RGC_BENCH_CHUNK).  Use for buffered/offline replay — a
+    instead of per scan (see bench.py RGC_BENCH_CHUNK; the gain on the H100
+    is not measured yet).  Use for buffered/offline replay — a
     hard-real-time loop wants chunk=1 so every scan's pose is available
     immediately.
     """
@@ -166,8 +167,8 @@ class SlamSystem:
                  chunk: int = 1):
         self.cfg = cfg
         self.state = SlamState.init(cfg)
-        # NOTE: no donate_argnums on the state — donation measurably halves
-        # throughput here (it serializes the async dispatch pipeline)
+        # no donate_argnums on the state: whether donation pays on the GPU
+        # is not measured yet
         self._step = jax.jit(functools.partial(slam_step, cfg=cfg))
         self.chunk = chunk
         self._chunk_step = None

@@ -22,7 +22,7 @@ def eigh3x3(A: jax.Array):
 
     Uses the trigonometric closed form for eigenvalues and cross-product
     null-space extraction for eigenvectors — far cheaper than LAPACK-style
-    iteration and fully vectorized on the VPU.
+    iteration and fully vectorized.
     """
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a11, a12, a22 = A[..., 1, 1], A[..., 1, 2], A[..., 2, 2]
@@ -157,9 +157,9 @@ def rbf_covariances(
     the raw kernel_width as the exponent factor; defaults 0.25 / 3.0 from
     fast_vgicp_cuda.cu:25-26), mean = Σwx/Σw, cov = Σw·xxᵀ/Σw − mean·meanᵀ.
 
-    TPU formulation: pairwise d² via the Gram identity (one [chunk,N]
+    Accelerator formulation: pairwise d² via the Gram identity (one [chunk,N]
     matmul), weights as a dense gated matrix, and every moment as ONE
-    matmul W @ [1 | x | xxᵀ-flat] — all MXU work, lax.map'd over row chunks
+    matmul W @ [1 | x | xxᵀ-flat] — all matrix-unit work, lax.map'd over row chunks
     to bound the [chunk, N] working set.  Deviation (documented): moments
     accumulate around the cloud centroid instead of raw sensor coordinates —
     mathematically identical (covariance is translation-invariant), but the

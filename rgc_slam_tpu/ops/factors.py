@@ -1,6 +1,6 @@
 """Factor library + small Gauss-Newton solver.
 
-TPU rebuild of ``src/lidarFactor.hpp`` (SURVEY §2.2).  Each factor is a pure
+JAX rebuild of ``src/lidarFactor.hpp`` (SURVEY §2.2).  Each factor is a pure
 residual function; Jacobians come from ``jax.jacfwd`` over a 6-dim (or 12-dim)
 tangent parameterization — the JAX-native replacement for Ceres autodiff.
 Residual weighting conventions follow the reference exactly (divide by `var`,
@@ -203,7 +203,7 @@ def gauss_newton(
 
     With ``psum_axis`` the residual rows live point-sharded across the named
     mesh axis: each device linearizes its slice, and the dim×dim H / g
-    partials are all-reduced before the solve (the TPU analog of the OpenMP
+    partials are all-reduced before the solve (the device analog of the OpenMP
     reductions in RGC_mapping.cpp:1093-1283).  Residual rows replicated on
     every device must be pre-scaled by rsqrt(axis size) so the psum counts
     them once.

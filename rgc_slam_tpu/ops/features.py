@@ -1,4 +1,4 @@
-"""Feature front-end: the TPU re-expression of the `scanRegistration` node.
+"""Feature front-end: the JAX re-expression of the `scanRegistration` node.
 
 Reference behavior rebuilt here (see SURVEY §2.1 A1-A4, §3.1):
   * A1 range gate + rear-cone cut      (scanRegistration.cpp:107-113,732-763)
@@ -10,7 +10,7 @@ Reference behavior rebuilt here (see SURVEY §2.1 A1-A4, §3.1):
                                        (scanRegistration.cpp:34-40,307-431)
 
 Design: the whole scan is one flat padded tensor sorted ring-major (valid
-points contiguous per ring).  Window ops are shifted-array sums (VPU friendly);
+points contiguous per ring).  Window ops are shifted-array sums (they vectorize);
 the reference's *sequential* greedy pick becomes a fixed number of
 argmax-and-suppress rounds that run all (ring × sector) segments in parallel —
 identical per-sector semantics, only cross-sector suppression ordering differs.
@@ -26,13 +26,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..types import FeatureCloud, GroundPlane, PointCloud
+from ..utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class FeatureExtraction:
     """Output of the front-end for one scan."""
 
@@ -398,10 +398,9 @@ def extract_features(cloud: PointCloud, cfg: SlamConfig, debug: bool = False):
 def extract_features_sp(cloud: PointCloud, cfg: SlamConfig) -> FeatureExtraction:
     """Block-sharded feature front-end over the sp mesh axis.
 
-    Round-5 probe (PARITY §sp, eval_sp_feature_probe.json): at
-    128-beam-class caps (131,072 points) the feature stage runs 8.9x above
-    the dispatch floor — real device compute worth slicing for single-stream
-    latency.  Engine sp convention (ops/registration.py,
+    Meant for 128-beam-class caps (131,072 points), where the feature stage
+    is real device compute worth slicing for single-stream latency (not
+    measured on the H100 yet).  Engine sp convention (ops/registration.py,
     models/odometry.py:264-278): inputs are replicated, each device computes
     rows [i·per, (i+1)·per) of the windowed stack + covariances on a ±_HALO
     strip (the halo is sliced from the replicated arrays, so no ppermute is

@@ -3,15 +3,15 @@
 Completes the fast_gicp library surface (SURVEY §2.3) beyond the VGICP used
 at runtime:
   * ``gicp_register``   — G2/G3 ``FastGICP``: per-point 1-NN correspondences
-    (kd-tree -> batched MXU knn) with distribution-to-distribution Mahalanobis
+    (kd-tree -> batched brute-force knn) with distribution-to-distribution Mahalanobis
     cost (impl/fast_gicp_impl.hpp:216-313).  The reference's single-thread /
-    OpenMP split (G2 vs G3) is meaningless on TPU — one vectorized program
+    OpenMP split (G2 vs G3) is meaningless on an accelerator — one vectorized program
     covers both.
   * ``ndt_register``    — G13 ``NDTCuda``, BOTH NDTDistanceMode variants
     (ndt_settings.hpp:6): D2D voxel-Gaussians-vs-voxel-Gaussians and P2D
     points-vs-voxel-Gaussians, with the kernels' Cauchy robustifier
     (ndt/ndt_cuda.hpp, cuda/ndt_compute_derivatives.cu — in-tree but unbuilt
-    in the reference; rebuilt here TPU-native).
+    in the reference; rebuilt here in JAX).
 
 Both reuse the LsqRegistration LM driver through the same frozen-correspondence
 structure as ops/registration.py.
@@ -41,7 +41,7 @@ def knn_covariances(pts: jax.Array, mask: jax.Array, k: int = 20,
                     method: str = "plane") -> jax.Array:
     """Per-point regularized covariance from k nearest neighbors —
     ``FastGICP::calculate_covariances`` (impl/fast_gicp_impl.hpp:341-400) with
-    the kd-tree replaced by the batched MXU knn; ``method`` selects the
+    the kd-tree replaced by the batched brute-force knn; ``method`` selects the
     RegularizationMethod ("plane" reference default | "norm_min_eig")."""
     d2, idx = knn_ops.knn(pts, pts, mask, k)
     near = pts[idx]                                    # [N, k, 3]
@@ -182,7 +182,7 @@ def gicp_register(
 
 def plane_normals(pts: jax.Array, mask: jax.Array, k: int = 20) -> jax.Array:
     """Per-point unit normals: smallest-eigenvalue direction of the k-NN
-    covariance (the pcl::NormalEstimation analog, batched on the VPU)."""
+    covariance (the pcl::NormalEstimation analog, batched elementwise)."""
     from .covariance import eigh3x3
 
     d2, idx = knn_ops.knn(pts, pts, mask, k)
@@ -256,7 +256,7 @@ def gicp_mp_register(
     unlike LsqRegistration), and the convergence test is the shared
     max(|exp(dr)-I|/rot_eps, |dt|/t_eps) < 1 (fast_gicp_mp_impl.hpp:117-127).
 
-    TPU-native deviations: the unbounded radius search becomes a ``fuse_k``
+    Deviations: the unbounded radius search becomes a ``fuse_k``
     nearest-neighbor gather masked at ``radius`` (fixed shapes for jit; the
     weight profile already de-emphasizes far neighbors so truncation at
     fuse_k is benign), and the OpenMP point loop is one batched einsum

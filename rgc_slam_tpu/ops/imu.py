@@ -18,10 +18,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..types import ImuBatch
 from ..utils import math3d as m3
+from ..utils import pytree
 
 MED_WIN = 41          # median window for ay/az (ax uses MED_WIN_X)
 MED_WIN_X = 201
@@ -34,7 +34,7 @@ WARM_CAP = 256
 WARM_TRIM = 32
 
 
-@struct.dataclass
+@pytree.dataclass
 class ImuFilterState:
     """Persistent complementary-filter + median-filter state."""
 
@@ -359,7 +359,7 @@ def preintegrate_full(
     matrix V per sample.  Here both are the exact linearization of the same
     midpoint step, obtained by forward-mode autodiff of a tangent-space
     wrapper — no hand-derived blocks to get wrong, and the 27 JVP columns
-    batch onto the VPU.  One fidelity upgrade over the reference: the
+    batch as elementwise ops.  One fidelity upgrade over the reference: the
     midpoint rule reuses each sample's measurement noise in two consecutive
     steps (as the step-k ``a1`` and the step-k+1 ``a0``); VINS treats those
     as independent, underestimating σ by √2 (verified by Monte-Carlo).  We
@@ -414,7 +414,7 @@ def preintegrate_full(
     (q, p, v, sdt), (qs, ps, vs) = jax.lax.scan(mean_step, init, xs)
 
     # ---- phase 2: per-sample F/V by vmapped forward-mode autodiff ----
-    # (the 27 JVP columns AND the sample axis batch together on the VPU —
+    # (the 27 JVP columns AND the sample axis batch together —
     # the naive formulation ran jacfwd inside the scan, serializing the
     # samples and making cfg.imu_cov_mode="preint" ~3x the IMU-path cost)
     def linearize(q0_, p0_, v0_, dt_i, a0, a1, g0, g1):

@@ -1,4 +1,4 @@
-"""VGICP scan-to-submap registration — the TPU rebuild of fast_gicp.
+"""VGICP scan-to-submap registration — the JAX rebuild of fast_gicp.
 
 Maps reference components (SURVEY §2.3):
   * G1 ``LsqRegistration`` Levenberg-Marquardt over SE(3)
@@ -11,7 +11,7 @@ Maps reference components (SURVEY §2.3):
     and reduced with a single sum — the XLA analog of the OpenMP/thrust
     reductions (and of the unbuilt CUDA path G12).
   * G6-G12 CUDA backend  ->  this whole module *is* that accelerator design,
-    re-expressed for XLA/TPU with static shapes.
+    re-expressed for XLA with static shapes.
 
 Precision note: clouds stay f32; the 6x6 normal equations accumulate in f32
 with residual centering (errors are O(voxel size)), and the tiny 6x6 solve is
@@ -56,7 +56,7 @@ def _solve6(H: jax.Array, b: jax.Array, damping: jax.Array) -> jax.Array:
 
 
 def _inv3_sym(A: jax.Array) -> jax.Array:
-    """Batched symmetric 3x3 inverse via adjugate (VPU-friendly)."""
+    """Batched symmetric 3x3 inverse via adjugate (elementwise, batched)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e = A[..., 1, 1], A[..., 1, 2]
     f = A[..., 2, 2]
@@ -175,7 +175,7 @@ def corr_linearize(corr: Correspondences, src: jax.Array, q: jax.Array, t: jax.A
     """H/b at (q, t) with frozen correspondences.  J = [skew(Tp) | -I].
 
     With ``psum_axis`` the local (point-sharded) partial sums are all-reduced
-    over the named mesh axis — the TPU analog of the reference's OpenMP
+    over the named mesh axis — the device analog of the reference's OpenMP
     per-thread H/b partials merged at the end (fast_vgicp_impl.hpp:135-180).
     """
     src = _expand_src(src, corr)

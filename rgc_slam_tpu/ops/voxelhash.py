@@ -1,6 +1,6 @@
-"""Static-shape open-addressing voxel hash for TPU.
+"""Static-shape open-addressing voxel hash for XLA.
 
-This is the TPU-native replacement for two components of the reference:
+This is the static-shape replacement for two components of the reference:
   * PCL ``VoxelGrid`` downsampling (RGC_odometer.cpp:976-991 and the mapping
     node's corner/surf filters), and
   * the GaussianVoxelMap underlying FastVGICP
@@ -12,7 +12,7 @@ This is the TPU-native replacement for two components of the reference:
     next slot).  All shapes are static, so the whole structure jit/vmaps.
 
 Keys pack quantized voxel coords into one non-negative int32 (10 bits/axis),
-giving exact key comparison without int64 (disabled on TPU by default).
+giving exact key comparison without int64 (disabled in JAX by default).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def pack_coords(coords: jax.Array, valid: jax.Array) -> jax.Array:
     boundary.  The 80 m range gate keeps per-scan geometry comfortably inside;
     KITTI's ~120 m returns at 0.2 m are within budget only because of that
     shift.  (10 bits/axis keeps the packed key inside non-negative int32 —
-    int64 is disabled on TPU by default.)
+    int64 is disabled in JAX by default.)
     """
     shifted = coords + COORD_OFFSET
     in_range = jnp.all((shifted >= 0) & (shifted <= COORD_MASK), axis=-1)

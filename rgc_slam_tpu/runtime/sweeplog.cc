@@ -1,6 +1,6 @@
 // Native sweep-log runtime: binary LiDAR/IMU log IO with background prefetch.
 //
-// This is the TPU build's replacement for the reference's native transport
+// This is the rebuild's replacement for the reference's native transport
 // layer: rosbag replay + TCPROS topic plumbing + mutex-guarded std::queue
 // buffers drained by polling threads (SURVEY §5.8, RGC_odometer.cpp:245,
 // RGC_mapping.cpp:65).  The engine itself is jit-compiled JAX; this C++

@@ -1,24 +1,26 @@
-"""Core pytree containers for the TPU-native SLAM engine.
+"""Core pytree containers for the SLAM engine.
 
 These replace the reference's PCL point clouds + ROS messages (SURVEY §1, L1:
 ``utility.h:76-79,245-301``, ``ground_msg/msg/groundparam.msg``) with
-fixed-shape, mask-padded JAX arrays.  Every container is a flax struct so it
-flows through jit / vmap / scan and serializes with orbax for checkpointing.
+fixed-shape, mask-padded JAX arrays.  Every container is a pytree dataclass
+(utils/pytree.py) so it flows through jit / vmap / scan and serializes for
+checkpointing.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from .utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class PointCloud:
     """Padded point cloud: xyz positions + per-point attributes + valid mask.
 
     `rel_time` packs the reference's ring-relative timestamp (the decimal part
     of the `intensity = ringID + 0.1*relTime` encoding, scanRegistration.cpp:210)
-    as its own channel — no bit packing needed on TPU.
+    as its own channel — no bit packing needed.
     """
 
     xyz: jax.Array            # [N, 3] float32
@@ -45,7 +47,7 @@ class PointCloud:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class FeatureCloud:
     """Feature points with per-point confidence (`normal_x` in the reference,
     scanRegistration.cpp:501,554,609)."""
@@ -65,7 +67,7 @@ class FeatureCloud:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class GroundPlane:
     """Per-scan ground-plane estimate (ref ground_msg/msg/groundparam.msg:1-12).
 
@@ -92,7 +94,7 @@ class GroundPlane:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class ImuBatch:
     """Padded IMU sample window between two scans (ref utility.h:245-269)."""
 
@@ -111,7 +113,7 @@ class ImuBatch:
         )
 
 
-@struct.dataclass
+@pytree.dataclass
 class Pose:
     """SE(3) pose as quaternion [w,x,y,z] + translation."""
 
@@ -123,11 +125,11 @@ class Pose:
         return cls(q=jnp.array([1.0, 0, 0, 0], dtype), t=jnp.zeros((3,), dtype))
 
 
-@struct.dataclass
+@pytree.dataclass
 class VoxelMap:
     """Gaussian voxel map: open-addressing hash of per-voxel moments.
 
-    TPU-native re-expression of the reference's GPU voxel map design
+    Static-shape re-expression of the reference's GPU voxel map design
     (``cuda/gaussian_voxelmap.cu:21-57`` — atomicCAS bucket claiming becomes
     round-based scatter-min claiming; see ops/voxelmap.py).
     """
@@ -139,7 +141,7 @@ class VoxelMap:
     resolution: jax.Array     # [] float32
 
 
-@struct.dataclass
+@pytree.dataclass
 class Scan:
     """One raw sweep, fixed shape — input to the whole pipeline."""
 

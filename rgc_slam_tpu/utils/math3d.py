@@ -1,4 +1,4 @@
-"""SO(3)/SE(3) math utilities (TPU-first, JAX).
+"""SO(3)/SE(3) math utilities (JAX).
 
 Quaternions are stored as arrays ``[w, x, y, z]`` (Hamilton convention).
 Euler angles are always yaw-pitch-roll (ZYX intrinsic) in **radians**.

@@ -4,7 +4,7 @@ ATE-parity north star in an image with no real data and no buildable C++).
 
 Each function replays the corresponding C++ loop verbatim (same iteration
 order, same gates, same quirks) so tests can assert tight numeric agreement
-with the TPU engine:
+with the JAX engine:
 
   * ``reference_ground_fit``            scanRegistration.cpp:307-431
   * ``reference_complementary_filter``  RGC_odometer.cpp:545-625 (+ Mid_Filter

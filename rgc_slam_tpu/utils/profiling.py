@@ -9,7 +9,7 @@ RGC_mapping.cpp:971,1444-1445).  Here:
   * ``Metrics``       — step-indexed scalar registry (fitness, factor counts,
     loop events …) dumpable to JSON lines
   * ``trace``         — context manager bridging to jax.profiler traces for
-    XLA-level profiling on TPU
+    XLA-level profiling on the device
 """
 from __future__ import annotations
 
@@ -93,7 +93,7 @@ class Metrics:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler trace for XLA/TPU-level inspection (xprof/tensorboard)."""
+    """jax.profiler trace for XLA/device-level inspection (xprof/tensorboard)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield

@@ -149,40 +149,6 @@ def test_fleet_step_compacting_device_gate():
     assert c[1] <= 5, "under-margin robot must not be thinned"
 
 
-def test_compact_fleet_if_needed_gates_dispatch():
-    """Sync gate: no compaction dispatched below the margin, compaction
-    dispatched at the margin (predicate via the dedicated tiny buffer)."""
-    import dataclasses
-    import jax.numpy as jnp
-    import numpy as np
-    from rgc_slam_tpu.config import TEST_CONFIG
-    from rgc_slam_tpu.models.mapping import COMPACT_MARGIN
-    from rgc_slam_tpu.parallel import fleet as fl
-
-    cfg = dataclasses.replace(TEST_CONFIG, max_keyframes=64)
-    K = cfg.max_keyframes
-    states = fl.fleet_init(cfg, 1)
-    kf_t = jnp.tile(jnp.arange(K, dtype=jnp.float32)[None, :, None], (1, 1, 3))
-    ms = states.mapping.replace(
-        kf_count=jnp.asarray([K - COMPACT_MARGIN - 1], jnp.int32), kf_t=kf_t,
-        kf_travel=jnp.tile(jnp.arange(K, dtype=jnp.float32)[None], (1, 1)),
-    )
-    states = states.replace(mapping=ms)
-    calls = []
-
-    def spy(s):
-        calls.append(1)
-        return fl.compact_fleet(s)
-
-    out = fl.compact_fleet_if_needed(states, spy)
-    assert not calls, "below margin: compact_fleet must not be dispatched"
-    states = states.replace(
-        mapping=states.mapping.replace(kf_count=jnp.asarray([K - 1], jnp.int32))
-    )
-    out = fl.compact_fleet_if_needed(states, spy)
-    assert calls and int(np.asarray(out.mapping.kf_count)[0]) < K - 1
-
-
 @pytest.mark.slow
 def test_fleet_loop_closure_distinct_streams():
     """Fleet SLAM includes loop closure (VERDICT r2 item 2): two robots on

@@ -1,4 +1,4 @@
-"""Per-stage parity oracles vs the TPU engine (VERDICT r2 item 1).
+"""Per-stage parity oracles vs the JAX engine (VERDICT r2 item 1).
 
 Each test replays a numerically subtle reference stage with the exact numpy
 transliteration in ``utils/parity.py`` and asserts tight agreement with the
